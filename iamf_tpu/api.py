@@ -1,6 +1,6 @@
 """Public decoder API.
 
-TPU-native equivalent of include/IAMF_decoder.h: open/configure/decode/
+Python equivalent of include/IAMF_decoder.h: open/configure/decode/
 close, output layout & binaural setters, mix presentation selection,
 loudness normalization, bit depth, peak limiter controls, PTS + extradata
 metadata. Orchestration mirrors IAMF_decoder.c (configure :3759-3913,

@@ -16,29 +16,17 @@ IMAGE_REL_AMD64_* relocation semantics.
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
 
+from ... import native
+
 _RT = None
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))),
-    "native",
-)
 
 
 def _runtime():
     global _RT
     if _RT is None:
-        path = os.path.join(_NATIVE_DIR, "lib", "libiamf_coffrt.so")
-        if not os.path.exists(path):
-            import subprocess
-
-            subprocess.run(
-                ["g++", "-O2", "-fPIC", "-shared", "-o", path,
-                 os.path.join(_NATIVE_DIR, "src", "coffrt.cc")],
-                check=True, capture_output=True)
-        rt = ctypes.CDLL(path)
+        rt = native.load(native.COFF_RUNTIME)
         rt.iamf_coff_alloc.restype = ctypes.c_void_p
         rt.iamf_coff_alloc.argtypes = [ctypes.c_size_t]
         rt.iamf_coff_shim.restype = ctypes.c_void_p

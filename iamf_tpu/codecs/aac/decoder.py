@@ -19,20 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ... import native
 from ...constants import Codec
 from ..base import CodecDecoder, register
-
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "lib", "libiamf_native.so")
 
 _lib = None
 
@@ -41,14 +34,10 @@ def _load_native():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
-            )
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise NotImplementedError(f"native aac lib unavailable: {e}")
-    _lib = ctypes.CDLL(_LIB_PATH)
+    try:
+        _lib = native.load()
+    except OSError as e:
+        raise NotImplementedError(f"native aac lib unavailable: {e}")
     _lib.iamf_aac_open.restype = ctypes.c_void_p
     _lib.iamf_aac_open.argtypes = [ctypes.c_int, ctypes.c_int]
     _lib.iamf_aac_close.argtypes = [ctypes.c_void_p]

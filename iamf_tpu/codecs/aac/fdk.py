@@ -3,7 +3,7 @@
 Runs the reference's prebuilt Windows fdk-aac library on Linux — the same
 binary dependency model the reference uses (it links this exact archive;
 IAMF_aac_decoder.c:83-161) — serving as the AAC test-vector encoder and the
-decode oracle/backend until the from-scratch TPU AAC-LC decoder replaces
+decode oracle/backend until the from-scratch AAC-LC decoder replaces
 the decode side.
 
 Encoder/decoder API per dep_codecs/include/fdk-aac/aacenc_lib.h and

@@ -15,21 +15,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ... import native
 from ...constants import Codec
 from ...obu.bitstream import BitReader
 from ..base import CodecDecoder, register
-
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "lib", "libiamf_native.so")
 
 _lib = None
 
@@ -38,14 +31,10 @@ def _load_native():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
-            )
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise NotImplementedError(f"native FLAC lib unavailable: {e}")
-    _lib = ctypes.CDLL(_LIB_PATH)
+    try:
+        _lib = native.load()
+    except OSError as e:
+        raise NotImplementedError(f"native FLAC lib unavailable: {e}")
     _lib.iamf_flac_decode_frame.restype = ctypes.c_int
     _lib.iamf_flac_decode_frame.argtypes = [
         ctypes.POINTER(ctypes.c_uint8),

@@ -20,20 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ... import native
 from ...constants import Codec
 from ..base import CodecDecoder, register
-
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "lib", "libiamf_native.so")
 
 _lib = None
 
@@ -42,14 +35,10 @@ def _load_native():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
-            )
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise NotImplementedError(f"native opus lib unavailable: {e}")
-    _lib = ctypes.CDLL(_LIB_PATH)
+    try:
+        _lib = native.load()
+    except OSError as e:
+        raise NotImplementedError(f"native opus lib unavailable: {e}")
     _lib.iamf_opus_decoder_create.restype = ctypes.c_void_p
     _lib.iamf_opus_decoder_create.argtypes = [ctypes.c_int]
     _lib.iamf_opus_decoder_destroy.argtypes = [ctypes.c_void_p]
@@ -293,7 +282,7 @@ class OpusDecoder(CodecDecoder):
                 import concurrent.futures as _cf
 
                 # pool sized to the host cores, not the substream count:
-                # 7 threads on a 2-core box only adds context switching,
+                # more threads than cores only adds context switching,
                 # and in aggregate serving N streams each carry a pool
                 # IAMF_OPUS_THREADS overrides for aggregate serving:
                 # N concurrent decoders each carrying a cores-sized pool
@@ -374,7 +363,7 @@ class OpusDecoder(CodecDecoder):
                 import concurrent.futures as _cf
 
                 # pool sized to the host cores, not the substream count:
-                # 7 threads on a 2-core box only adds context switching,
+                # more threads than cores only adds context switching,
                 # and in aggregate serving N streams each carry a pool
                 # IAMF_OPUS_THREADS overrides for aggregate serving:
                 # N concurrent decoders each carrying a cores-sized pool
@@ -406,7 +395,7 @@ def _gains_table():
 
 class TPUOpusStream:
     """Opus multistream decode with device-side synthesis: host entropy
-    layers feed spectra to one batched TPU dispatch per frame block."""
+    layers feed spectra to one batched device dispatch per frame block."""
 
     def __init__(self, decoder_conf, streams, coupled_streams, frame_size):
         self.dec = OpusDecoder(decoder_conf, streams, coupled_streams,

@@ -1,5 +1,5 @@
 """Jitted device band-walk (spike): the packed band tables as a compiled
-TPU program, for the long-block mono frame class.
+device program, for the long-block mono frame class.
 
 Consumes band_pack's flattened representation — per-band leaf slots with
 bit-matrix fill maps, cm shifts, LCG jump-ahead, fold gathers from the
@@ -294,7 +294,8 @@ def run_frame(bt, lt, seed0):
         lb_raw = jax.lax.dynamic_slice(
             jnp.pad(norm, (0, W)), (bt["eff"][i],), (W,))
         pre_m = jnp.asarray(PRE_BANK[i])[bt["cfg_id"][i]]
-        lb_t = pre_m @ lb_raw[:N]
+        lb_t = jnp.matmul(pre_m, lb_raw[:N],
+                          precision=jax.lax.Precision.HIGHEST)
         lb_full = jnp.zeros(W, jnp.float32).at[:N].set(lb_t)
 
         X = jnp.zeros(N, jnp.float32)
@@ -361,7 +362,7 @@ def run_frame(bt, lt, seed0):
         seed = seed * jnp.take(ja, tot) + jnp.take(jb, tot)
         # upward transforms + cm post-map from the config banks
         post_m = jnp.asarray(POST_BANK[i])[bt["cfg_id"][i]]
-        X = post_m @ X
+        X = jnp.matmul(post_m, X, precision=jax.lax.Precision.HIGHEST)
         cmv = _apply_cols16(jnp.asarray(CM_BANK[i])[bt["cfg_id"][i]],
                             cm_acc) & jnp.asarray(BM_BANK[i])[
             bt["cfg_id"][i]]

@@ -1,23 +1,23 @@
 """Batched CWRS index->pulse decode on the device (the round-5 entropy
 experiment, SURVEY §2.3.1 / §7 hard-part 1).
 
-Measured on the bench content (TRACE.md round 5): the cwrsi walk — PVQ
-codeword index -> pulse vector, reference loop in libopus cwrs.c, our host
-port in native/src/opus/celt_pvq.cc — is ~60% of the entire Opus host
-entropy wall (295 ns/leaf, 0.205 s per 30 s 7.1.4 stream), dwarfing the
-range-decoder reads themselves (13%). Unlike those reads, cwrsi is NOT
+On the round-5 bench content the cwrsi walk (PVQ codeword index -> pulse
+vector; reference loop in libopus cwrs.c, our host port in
+native/src/opus/celt_pvq.cc) was the largest single part of the Opus host
+entropy decode, larger than the range-decoder reads themselves. Unlike
+those reads, cwrsi is NOT
 entropy-coupled: the (N, K, index) triple per leaf is known the moment the
 range decoder consumed the index, and nothing downstream of the pulse
 values feeds back into the bit consumption. It is therefore the natural
 first stage of a device-side PVQ reconstruction.
 
-Formulation (the trick that makes it a TPU program): the per-dimension
+Formulation (the trick that makes it a device program): the per-dimension
 search `while U(k', n) > i: k'--` walks a row of the CWRS table that is
 THE SAME for every leaf at the same dimension n. Batching leaves and
 unrolling dimensions top-down, each step needs only
   - the constant row u_n[j] = U(j, n)  ([132] u32, precomputed), and
   - per-lane compares/reductions against it ([lanes, 132] broadcast),
-i.e. pure VPU work with NO gathers from the 2-D table; the two direct
+i.e. pure elementwise work with NO gathers from the 2-D table; the two direct
 row lookups (p = U(n, k+1), q = U(n, n)) read the same constant row.
 Lanes with smaller N idle (masked) until the global dimension counter
 drops into their range, then run the identical update; the closing n=2 /
@@ -109,9 +109,9 @@ def cwrsi_batch(n, k, idx, align: bool = True, n_max: int = N_MAX):
 
         NO gathers anywhere: per-lane row lookups u_d[v] are evaluated as
         one-hot selects over the same [lanes, 132] broadcast the search
-        uses — XLA:TPU lowers small-table jnp.take to scalar-unit gathers
-        (measured 4 us/lane-step, 14x SLOWER than the host walk); the
-        select form stays on the VPU."""
+        uses. The form was chosen for a compiler that lowered small-table
+        jnp.take to scalar gathers; whether a gather is faster on the GPU
+        has not been measured."""
         u_d = rows[d]
         onehot = lambda v: jnp.sum(
             jnp.where(jidx[None, :] == v[:, None], u_d[None, :],
@@ -176,11 +176,10 @@ def cwrsi_batch(n, k, idx, align: bool = True, n_max: int = N_MAX):
 def host_reference(n, k, idx) -> np.ndarray:
     """Host cwrsi via the native lib (the oracle for the kernel)."""
     import ctypes
-    import os
 
-    lib = ctypes.CDLL(os.path.join(
-        os.path.dirname(os.path.abspath(__file__)),
-        "..", "..", "..", "native", "lib", "libiamf_native.so"))
+    from ... import native
+
+    lib = native.load()
     cnt = len(n)
     y = np.zeros((cnt, 208), np.int32)
     lib.iamf_cwrsi_bench.restype = ctypes.c_longlong

@@ -7,7 +7,7 @@ decoded pulse vector to the unit sphere times the theta-path gain
 (X = y * gain / sqrt(sum y^2)) and applies the spreading rotation
 exp_rotation(X, N, -1, B, K, spread).
 
-TPU formulation, driven by the round-5 leaf census (TRACE.md):
+Device formulation, driven by a census of the leaves of real streams:
 - normalization is a pure row op over the [L, N_MAX] pulse batch;
 - 90.5% of real leaves skip rotation entirely (2K >= N or SPREAD_NONE),
   a host-known predicate of (N, K, spread);
@@ -26,12 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import native
 from .device_cwrsi import N_MAX, cwrsi_batch
 
 ROT_W = 96  # rotation matrix pad (largest rotating leaf dimension)
@@ -39,9 +39,7 @@ ROT_W = 96  # rotation matrix pad (largest rotating leaf dimension)
 
 @functools.lru_cache(maxsize=None)
 def _native():
-    lib = ctypes.CDLL(os.path.join(
-        os.path.dirname(os.path.abspath(__file__)),
-        "..", "..", "..", "native", "lib", "libiamf_native.so"))
+    lib = native.load()
     lib.iamf_exp_rotation.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -97,7 +95,8 @@ def apply_rotations(X, cfg_idx, bank):
     bank [n_cfg, ROT_W, ROT_W]."""
     mats = bank[cfg_idx]  # [L, ROT_W, ROT_W]
     return jnp.einsum("lij,lj->li", mats, X,
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _pad_pow2(m: int, lo: int = 64) -> int:

@@ -1,6 +1,6 @@
 """Core IAMF constants, enums, and channel/layout tables.
 
-TPU-native IAMF framework. Semantics follow AOM IAMF v1.0 as realized by the
+IAMF framework. Semantics follow AOM IAMF v1.0 as realized by the
 reference decoder (see /root/reference):
   - OBU types: IAMF_OBU.h:47-58
   - Sound systems: IAMF_defines.h:62-78

@@ -4,7 +4,7 @@ Host-side equivalent of the reference database (IAMF_decoder.c:624-1336):
 stores codec configs / elements / mix presentations, tracks per-parameter
 segment queues with timestamp elapse, and evaluates mix-gain curves
 (step/linear/bezier, :639-664) into dense per-frame gain vectors that feed
-the TPU pipeline as inputs.
+the device pipeline as inputs.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Host-side orchestration mirroring the reference stream layer
 (IAMF_decoder.c:1617-2430 stream/decoder, :2440-2660 renderer), re-targeted
-at the TPU pipeline: codec decode produces planar float frames, and all
+at the device pipeline: codec decode produces planar float frames, and all
 sample math (demix, render, gains) happens through the dsp/ device functions.
 """
 

@@ -1,4 +1,4 @@
-"""Host-side parameter-timeline replay for the batched TPU decoder.
+"""Host-side parameter-timeline replay for the batched device decoder.
 
 The reference evaluates parameter curves inside its frame loop: mix-gain
 step/linear/bezier curves (IAMF_decoder.c:639-664, :857-982), demix-mode
@@ -7,7 +7,7 @@ iamf_stream_scale_decoder_decode :2276-2349 and per render at
 DMRenderer_set_mode_weight downmix_renderer.c:180-216), and recon-gain
 EMA smoothing (dmx_rms demixer.c:443-475). All of these are tiny scalar
 state machines with strictly sequential per-frame recurrences — exactly
-the wrong shape for a TPU but trivial for the host.
+the wrong shape for an accelerator but trivial for the host.
 
 `replay` walks the stream's OBU event list (parameter blocks interleaved
 with temporal units) once, in arrival order, mirroring the frame-serial

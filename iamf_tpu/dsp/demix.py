@@ -1,4 +1,4 @@
-"""Scalable-channel demixer, TPU-native (reference: demixer.c).
+"""Scalable-channel demixer on the device (reference: demixer.c).
 
 Split host/device:
 
@@ -8,7 +8,7 @@ Split host/device:
   per-sample factor vectors (the reference's skip/current two-segment loops,
   demixer.c e.g. :203-215), output-gain-up (:421-430), and recon-gain RMS
   equalization with hanning start/stop windows (:443-475). Everything fuses
-  into one XLA program on the VPU.
+  into one XLA program on the device.
 
 - **Host** (`DemixerState`): tiny per-frame scalar state machines — the demix
   mode/w-index Markov walk (demixer_set_demixing_info :592-619, strictly

@@ -1,11 +1,11 @@
-"""Channel-layout downmix renderer (DMRenderer equivalent), TPU-native.
+"""Channel-layout downmix renderer (DMRenderer equivalent).
 
 The reference computes each missing output channel per-sample via a recursive
 dependency graph (downmix_renderer.c:47-129). That graph is data-independent:
 for a fixed (input layout, output layout, demix mode, w index) it flattens to
 a constant [out_ch, in_ch] gain matrix. We precompute that matrix on the host
-and the TPU render step is a single matmul — mathematically identical, and it
-maps the work onto the MXU instead of a scalar recursion.
+and the device render step is a single matmul — mathematically identical, and
+it maps the work onto the matrix units instead of a scalar recursion.
 
 Dependency rules (downmix_renderer.c:65-75, factors from the demix parameter):
     MONO = 0.5*L2 + 0.5*R2

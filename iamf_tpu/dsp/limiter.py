@@ -1,4 +1,4 @@
-"""Look-ahead peak limiter, TPU-native (reference: audio_effect_peak_limiter.c).
+"""Look-ahead peak limiter on the device (reference: audio_effect_peak_limiter.c).
 
 Algorithm (process_block :94-201): per sample k,
   1. peak = max of the look-ahead peak ring buffer (windowed max over the
@@ -144,7 +144,8 @@ def input_peaks(cfg: LimiterConfig, state: dict, x):
         [xc[:, TP_HIST - i:TP_HIST - i + T] for i in range(TP_TAPS)],
         axis=-1)
     ph = jnp.einsum("cti,pi->cpt", win, h,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)
     peaks = jnp.max(jnp.abs(ph), axis=(0, 1))
     return peaks, dict(state, tp_hist=xc[:, -TP_HIST:])
 

@@ -1,5 +1,5 @@
 """Layout renderers: M2M (multichannel->multichannel) and H2M (ambisonics->
-multichannel) as static gain-matrix einsums on the MXU.
+multichannel) as static gain-matrix einsums on the device.
 
 Reference: m2m_rdr.c (table :1629-1778, render :1820-1840, matrices comply
 with the EAR Direct Speakers renderer / ITU-R BS.2127-0 except 3.1.2 & 7.1.2

@@ -146,18 +146,10 @@ def _native_split_lib():
     _SPLIT_LIB[0] = True
     try:
         import ctypes
-        import os
 
-        path = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))),
-            "native", "lib", "libiamf_native.so")
-        if not os.path.exists(path):
-            import subprocess
+        from .. import native
 
-            subprocess.run(["make", "-C", os.path.dirname(
-                os.path.dirname(path))], check=True, capture_output=True)
-        lib = ctypes.CDLL(path)
+        lib = native.load()
         lib.iamf_obu_split_all.restype = ctypes.c_int64
         lib.iamf_obu_split_all.argtypes = [
             ctypes.c_char_p, ctypes.c_int64,

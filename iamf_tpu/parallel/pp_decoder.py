@@ -9,8 +9,8 @@ quantize (which contains the SEQUENTIAL limiter recurrence). The stages
 are separate jitted programs pinned to their device by input placement;
 JAX's async dispatch pipelines the microbatches: while device 1
 serializes the limiter for batch t-1, device 0 is already computing the
-filterbank for batch t, with the [B, C, T] activation crossing the ICI as
-the stage boundary.
+filterbank for batch t, with the [B, C, T] activation crossing between the
+devices as the stage boundary.
 
 Each stage keeps its own carry resident on its device (synthesis overlap/
 comb history on A, limiter/pos/splice on B), so the only cross-device
@@ -139,7 +139,7 @@ class PipelinedStreamDecoder:
                                                  xs_np.dtype)])
                         x = jax.device_put(xs_np, self.dev_a)
                     # stage boundary: the planar frame activation crosses
-                    # to device B over ICI (async; overlaps A's next batch)
+                    # to device B (async; overlaps A's next batch)
                     acts.append(jax.device_put(x, self.dev_b))
                 zero_acts = [jnp.zeros(a.shape, a.dtype) for a in acts]
                 zero_acts = [jax.device_put(z, self.dev_b)

@@ -24,7 +24,7 @@ bit-identical to the single-device decode:
    de-emphasis memory) — and later the limiter envelope (gain curve
    position + delay line + peak ring, compute_target_gain
    audio_effect_peak_limiter.c:237-265) — from shard k to k+1, each hop
-   finalising one shard. The expensive stages (IMDCT/filterbank MXU
+   finalising one shard. The expensive stages (IMDCT/filterbank
    matmuls, demix chains, render matmuls, mixing) stay fully parallel;
    only the cheap elementwise IIRs serialize, costing the same wall time
    as the serial decode's own IIR pass.

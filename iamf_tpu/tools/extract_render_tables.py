@@ -5,7 +5,7 @@ The IAMF renderer uses static per-(input layout, output layout) gain matrices
 §7.3.2.1 for 3.1.2/7.1.2 — see reference m2m_rdr.c:833-835) and static HOA
 decode matrices (h2m_rdr.c:1002-1062). These are *numeric data*, not code; we
 read them out of the compiled BSD-licensed reference libraries via ctypes and
-store them as .npz for the TPU renderer (dsp/render_m2m.py, dsp/render_h2m.py).
+store them as .npz for the device renderer (dsp/render_m2m.py, dsp/render_h2m.py).
 
 Two variants exist: the default (spec/EAR) set and the SAMSUNG_TV set
 (m2m_rdr.c:36). Both are stored.

@@ -18,6 +18,7 @@ import time
 import numpy as np
 
 from ..api import IAMFDecoder, InvalidState, IAMFError
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.wav import write_wav
 
 BLOCK_SIZE = 960 * 6 * 2 * 16  # iamfplayer.c:372
@@ -181,6 +182,7 @@ def main(argv=None) -> int:
                          "output layout every ~0.5 s mid-stream "
                          "(player_test_sound_system, iamfplayer.c:453-519)")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     if args.test_soundsystem is not None:
         return soak_sound_systems(args)

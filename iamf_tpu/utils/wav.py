@@ -1,6 +1,6 @@
 """Minimal RIFF/WAVE reader+writer for 16/24/32-bit integer PCM.
 
-TPU-native framework equivalent of the reference wav writer
+Framework equivalent of the reference wav writer
 (dep_external/src/wav/dep_wavwriter.c) plus a reader for golden comparison.
 """
 

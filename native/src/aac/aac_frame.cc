@@ -8,7 +8,7 @@
 // (aac_tables.cc). Architecture mirrors the Opus path: the bit-serial
 // layers (Huffman sections/scalefactors/spectral data, TNS) run here on
 // the host; the filterbank exists both as a host reference (decode())
-// and as spectrum export (decode_spectrum()) for the batched TPU IMDCT in
+// and as spectrum export (decode_spectrum()) for the batched device IMDCT in
 // iamf_tpu/codecs/aac/tpu_synth.py.
 //
 // Tool coverage: sectioning, scalefactors, pulse data, TNS, M/S stereo,
@@ -897,7 +897,7 @@ void iamf_aac_debug_stats(int* out, int reset) {
   if (reset) memset(g_stats, 0, sizeof(g_stats));
 }
 
-// Spectrum export for the TPU filterbank: spec [nch][1024] (per-window
+// Spectrum export for the device filterbank: spec [nch][1024] (per-window
 // order, post-TNS), meta [nch][3] = {window_sequence, window_shape,
 // prev_window_shape}. Host keeps only the prev-shape state; overlap lives
 // on the device. Returns samples per channel or negative error.

@@ -102,7 +102,7 @@ void denormalise_bands(const float* X, float* freq, const float* bandLogE,
 // ---- PVQ ---------------------------------------------------------------
 
 void decode_pulses(int* y, int N, int K, EntDec& dec);
-// standalone index->pulse expansion (the cwrsi walk) for the TPU-kernel
+// standalone index->pulse expansion (the cwrsi walk) for the device-kernel
 // experiment harness; y must hold N ints
 void cwrsi_export(int n, int k, uint32_t i, int* y);
 // IAMF_LEAF_TAP: record decoded PVQ leaves (n, k, index) plus the

@@ -86,7 +86,7 @@ static void deemphasis(float* const* in, float* pcm, int N, int C, float coef0,
 
 // When freq_export != nullptr the synthesis stages (IMDCT, overlap,
 // post-filter, de-emphasis) are skipped and the denormalised spectrum is
-// written to freq_export[CC][960] instead — the TPU pipeline evaluates them
+// written to freq_export[CC][960] instead — the device pipeline evaluates them
 // as batched matmuls + scans (codecs/opus/tpu_synth.py). All host-side state
 // (energy prediction, post-filter param rollover, LCG reseed) is updated
 // identically so the two paths can't diverge at the bitstream layer.

@@ -1,7 +1,7 @@
 // Inverse MDCT synthesis for CELT (RFC 6716 §4.3.7).
 //
 // Matrix form: t[m] = sum_k X[k] cos(2*pi/N (m + N/2 + .5)(k + .5)),
-// m in [0, N2) — exactly what the TPU pipeline evaluates as an MXU matmul;
+// m in [0, N2) — exactly what the device pipeline evaluates as a matmul;
 // the host fallback computes the same product. Output contract (matches the
 // reference backward MDCT, verified empirically in tests):
 //   out[ov/2 + m] = t[m]                       (raw, unwindowed)

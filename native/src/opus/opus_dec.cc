@@ -459,10 +459,10 @@ extern "C" void iamf_opus_prof_read(long long* out, int reset) {
   }
 }
 
-// ---- spectrum-export API for the TPU synthesis path --------------------
+// ---- spectrum-export API for the device synthesis path -----------------
 // Decodes the entropy/PVQ layers on the host and exports the denormalised
 // spectrum (freq domain, [C][960] stride, first N entries valid) plus
-// per-frame synthesis metadata; the TPU pipeline performs IMDCT (MXU
+// per-frame synthesis metadata; the device pipeline performs IMDCT (
 // matmul) + overlap + post-filter + de-emphasis. States that live in the
 // bitstream layer (energy prediction, LCG seed, range-coder reseed) stay
 // in the host decoder. Covers CELT mode at every frame size (120/240/480/
@@ -671,8 +671,8 @@ extern "C" void iamf_opus_band_stats(long long* out, int reset) {
 
 // cwrsi micro-bench + correctness shim: decode `count` recorded PVQ
 // leaves (n[i], k[i], idx[i]) into y_out[count][208], repeated `reps`
-// times; returns nanoseconds per rep. Used by the TPU-kernel experiment
-// to establish the host baseline on REAL leaf data (TRACE.md round 5).
+// times; returns nanoseconds per rep. Used by the device-kernel experiment
+// to establish the host baseline on REAL leaf data.
 extern "C" long long iamf_cwrsi_bench(const int* n, const int* k,
                                       const uint32_t* idx, int count,
                                       int reps, int* y_out) {

@@ -19,10 +19,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
+from iamf_tpu import native  # noqa: E402
 from iamf_tpu.codecs.opus import band_replay, device_leaf as dl  # noqa: E402
 
-LIB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "native", "lib", "libiamf_native.so")
+
 
 
 class CBandTap(ctypes.Structure):
@@ -58,7 +58,7 @@ class CBandTap(ctypes.Structure):
 
 
 def _lib():
-    lib = ctypes.CDLL(LIB)
+    lib = native.load()
     lib.iamf_opus_decoder_create.restype = ctypes.c_void_p
     lib.iamf_opus_decoder_create.argtypes = [ctypes.c_int]
     lib.iamf_opus_decode_float.restype = ctypes.c_int
@@ -382,8 +382,7 @@ def test_packed_replay_real_iamf_stream():
 
 @pytest.mark.skipif(not os.environ.get("IAMF_SLOW_TESTS"),
                     reason="~6-9 min XLA compile of the 21x16 unrolled "
-                           "program; run with IAMF_SLOW_TESTS=1 "
-                           "(validated in round 5 — see TRACE.md)")
+                           "program; run with IAMF_SLOW_TESTS=1")
 def test_jit_band_walk_long_mono_frames():
     """The jitted device band-walk (device_bands.run_frame) on mono
     frames — long-block AND transient (per-band transforms gathered from

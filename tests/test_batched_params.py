@@ -1,4 +1,4 @@
-"""Dynamic parameter blocks through the batched TPU path (VERDICT r1 #1).
+"""Dynamic parameter blocks through the batched device path.
 
 The reference evaluates mix-gain curves (IAMF_decoder.c:639-664, :857-982),
 demix-mode updates + w-index walk (demixer.c:592-619) and recon-gain

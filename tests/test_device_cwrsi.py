@@ -1,15 +1,16 @@
 """Device CWRS pulse decode vs the native host implementation.
 
-cwrsi (PVQ index -> pulse vector) measures ~60% of the Opus host entropy
-wall (TRACE.md round 5); codecs/opus/device_cwrsi.py evaluates it as a
-batched gather-free TPU program. Must be BIT-EXACT vs the host walk for
-every valid (n, k, index)."""
+cwrsi (PVQ index -> pulse vector) was the largest part of the Opus host
+entropy decode on the round-5 content; codecs/opus/device_cwrsi.py
+evaluates it as a batched gather-free device program. Must be BIT-EXACT vs
+the host walk for every valid (n, k, index)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+from iamf_tpu import native
 from iamf_tpu.codecs.opus import device_cwrsi as dc
 
 
@@ -71,11 +72,8 @@ def test_cwrsi_edges():
 def test_cwrsi_real_stream_leaves():
     """Leaves tapped from a real encoded stream (IAMF_LEAF_TAP)."""
     import ctypes
-    import os
 
-    lib0 = ctypes.CDLL(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "native", "lib", "libiamf_native.so"))
+    lib0 = native.load()
     lib0.iamf_leaf_tap_set(1)
     try:
         import vectors
@@ -88,9 +86,7 @@ def test_cwrsi_real_stream_leaves():
                 ChannelLayout.L510, n_frames=24, frame_size=960, amp=0.5)[0]
         except Exception as e:
             pytest.skip(f"opus encoder unavailable: {e}")
-        lib = ctypes.CDLL(os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "native", "lib", "libiamf_native.so"))
+        lib = native.load()
         lib.iamf_leaf_tap_read.restype = ctypes.c_longlong
         cap = 1 << 20
         n = np.zeros(cap, np.int32)

@@ -8,7 +8,6 @@ rotation, so the bar is ~1e-5 relative (the opus path's SNR class), not
 bit-exact like the integer pulse stage."""
 
 import ctypes
-import os
 
 import numpy as np
 import pytest
@@ -17,11 +16,11 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
+from iamf_tpu import native  # noqa: E402
+
 
 def _capture_corpus():
-    lib0 = ctypes.CDLL(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "native", "lib", "libiamf_native.so"))
+    lib0 = native.load()
     lib0.iamf_leaf_tap_set(2)
     try:
         import vectors
@@ -34,9 +33,7 @@ def _capture_corpus():
                 ChannelLayout.L510, n_frames=30, frame_size=960, amp=0.5)[0]
         except Exception as e:
             pytest.skip(f"opus encoder unavailable: {e}")
-        lib = ctypes.CDLL(os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "native", "lib", "libiamf_native.so"))
+        lib = native.load()
         lib.iamf_leaf_tap_read2.restype = ctypes.c_longlong
         CAP = 1 << 20
         n = np.zeros(CAP, np.int32)

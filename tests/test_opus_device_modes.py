@@ -2,7 +2,7 @@
 
 The reference decodes any TOC through one loop
 (/root/reference/src/iamf_dec/opus/opus_multistream2_decoder.c:125-165).
-The batched TPU path mirrors that with a static per-element split
+The batched device path mirrors that with a static per-element split
 (OpusDecoder.classify_packets): CELT at any frame size / packing and
 hybrid run the device spectrum synthesis; SILK-only and mixed-mode
 streams host-decode (bit-exact native path) and still flow through the

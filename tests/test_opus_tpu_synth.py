@@ -1,5 +1,5 @@
 """Device-side CELT synthesis vs the host synthesis path, on real libopus
-packets: the TPU pipeline (spectrum export -> batched IMDCT matmul -> comb
+packets: the device pipeline (spectrum export -> batched IMDCT matmul -> comb
 post-filter scan -> de-emphasis scan -> s16) must match the host decoder
 to <=1 s16 LSB (the de-emphasis associative scan is the only permitted
 rounding difference; see codecs/opus/tpu_synth.py)."""

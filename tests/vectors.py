@@ -568,6 +568,16 @@ def split_into_units(stream: bytes) -> tuple[bytes, list[bytes]]:
     return bytes(descriptors), units
 
 
+def loop_units(stream: bytes, n_units: int) -> bytes:
+    """A stream of ``n_units`` temporal units: the first unit as it is
+    (it carries the codec pre-skip trim), then units 1.. cycled, so that
+    only the stream's head is trimmed."""
+    descriptors, units = split_into_units(stream)
+    body = units[1:] or units
+    picked = [units[0]] + [body[i % len(body)] for i in range(n_units - 1)]
+    return descriptors + b"".join(picked[:n_units])
+
+
 def build_mp4(stream: bytes, frame_size: int = 960, media_time: int = 0,
               roll_distance: int = None) -> bytes:
     from iamf_tpu.tools.mp4builder import mux_iamf_mp4
